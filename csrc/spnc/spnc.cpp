@@ -1,6 +1,6 @@
 // spnc: native async netCDF-classic (CDF-2, 64-bit offset) writer.
 //
-// TPU-native replacement for the reference LES's own per-instance netCDF
+// Replacement for the reference LES's own per-instance netCDF
 // output path (DALES writes surf_xy / cross-section files per work dir,
 // reference README.md:108-111): the hot coupled-step loop enqueues float
 // buffers and returns immediately; a background worker thread serializes

@@ -11,7 +11,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-from sp_coupler_tpu.io import spifs  # noqa: E402
+from sp_coupler.io import spifs  # noqa: E402
 
 
 def main(path):

@@ -3,7 +3,7 @@
 # T21 GCM + 2 LES instances (64x64x160) near Barbados, 100 steps of 900 s,
 # surface coupling on. Here there are no worker processes to size — the
 # GCM, both LES instances, and the coupler run as one SPMD program on
-# whatever jax.devices() provides (one TPU chip is plenty for this case).
+# whatever jax.devices() provides (one GPU is plenty for this case).
 #
 # Reference: /root/reference/run_T21_sockets.sh
 

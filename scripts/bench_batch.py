@@ -12,16 +12,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sp_coupler_tpu.models.les import (grid as lgrid, state as lstate,
+from sp_coupler.models.les import (grid as lgrid, state as lstate,
                                        step as lstep, poisson)
-from sp_coupler_tpu.models.les.state import LESForcing
+from sp_coupler.models.les.state import LESForcing
 
 N_SUB = 20
 
 
 def main():
     grid = lgrid.LESGrid()
-    phys = lstep.LESPhysics(use_pallas=jax.default_backend() == "tpu")
+    phys = lstep.LESPhysics()
     print("backend:", jax.default_backend(), flush=True)
     zf = grid.zf()
     nz = grid.nz

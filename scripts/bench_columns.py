@@ -29,7 +29,7 @@ import numpy as np
 
 def pick_points(trunc, n):
     """n distinct GCM columns spread over the globe (|lat| < 60)."""
-    from sp_coupler_tpu.models.gcm import spharm
+    from sp_coupler.models.gcm import spharm
     sht = spharm.SpectralTransform(trunc)
     lats = np.asarray(sht.latitudes_deg())
     lons = np.asarray(sht.longitudes_deg())
@@ -49,9 +49,9 @@ def pick_points(trunc, n):
 
 def run_size(args, n):
     import jax
-    from sp_coupler_tpu.config import SPConfig
-    from sp_coupler_tpu.runtime.driver import SPRunner
-    from sp_coupler_tpu.utils import geometry
+    from sp_coupler.config import SPConfig
+    from sp_coupler.runtime.driver import SPRunner
+    from sp_coupler.utils import geometry
 
     odir = os.path.join(args.workdir, "cols_%04d" % n)
     cfg = SPConfig(

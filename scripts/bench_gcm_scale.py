@@ -17,8 +17,8 @@ import time
 import jax
 import jax.numpy as jnp
 
-from sp_coupler_tpu.models.gcm import model as gm
-from sp_coupler_tpu.models.gcm import spharm
+from sp_coupler.models.gcm import model as gm
+from sp_coupler.models.gcm import spharm
 
 
 def _roundtrip(core, x):

@@ -5,8 +5,8 @@ Usage: python scripts/bench_scaling.py [--sizes 1,2,4,8] [--nx 32]
        [--nz 64] [--per-dev 2] [--substeps 12] [--out SCALING.json]
 
 On CPU set XLA_FLAGS=--xla_force_host_platform_device_count=N (the
-tests/MULTICHIP environment); on a TPU slice it measures the real ICI
-story with the identical program.
+tests' virtual mesh); on a multi-GPU host it measures the real
+interconnect with the identical program.
 """
 
 import argparse
@@ -29,7 +29,7 @@ def main():
     args = ap.parse_args()
     sizes = ([int(s) for s in args.sizes.split(",") if s]
              if args.sizes else None)
-    from sp_coupler_tpu.runtime import scalebench
+    from sp_coupler.runtime import scalebench
     r = scalebench.measure(sizes=sizes, per_dev=args.per_dev, nx=args.nx,
                            ny=args.nx, nz=args.nz, substeps=args.substeps,
                            reps=args.reps)

@@ -13,17 +13,17 @@ import jax.numpy as jnp
 
 
 def main(schedule="auto"):
-    from sp_coupler_tpu.models.gcm import model as gcm_model
-    from sp_coupler_tpu.models.les import (grid as lgrid, state as lstate,
+    from sp_coupler.models.gcm import model as gcm_model
+    from sp_coupler.models.les import (grid as lgrid, state as lstate,
                                            step as lstep, diag as ldiag)
-    from sp_coupler_tpu.coupling import convert
-    from sp_coupler_tpu.coupling.coupler import CoupledStepFn
+    from sp_coupler.coupling import convert
+    from sp_coupler.coupling.coupler import CoupledStepFn
 
     n_les = 64
     gcfg = gcm_model.GCMConfig(trunc=159, nlev=19, dt=900.0)
     core = gcm_model.GCMCore(gcfg)
     grid = lgrid.LESGrid()
-    phys = lstep.LESPhysics(use_pallas=jax.default_backend() == "tpu")
+    phys = lstep.LESPhysics()
     print("backend:", jax.default_backend(), " T159 grid:",
           core.nlat, "x", core.nlon, flush=True)
 

@@ -2,11 +2,10 @@
 """BASELINE config 4: T255 GCM + fleets of 128x128x160 LES instances.
 
 The target is "T255 + 256 LES (128x128x160) domain-decomposed across one
-v5p host". Real hardware here is ONE v5e-class chip, so this bench runs
-the same coupled program with as many full-size (128x128x160) instances
-as the chip holds (default 32) and records step time + updates/s; the
-HBM-fit analysis for the v5p host is written alongside
-(verify/T255_CONFIG4.md via --report).
+host". This bench runs the same coupled program with a fleet of
+full-size (128x128x160) instances on one device (default 32) and records
+step time + updates/s; --report rewrites the measured section of
+verify/T255_CONFIG4.md above its memory-fit analysis.
 
 Usage: python scripts/bench_t255.py [--n 32] [--steps 2] [--report]
 """
@@ -22,39 +21,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-REPORT = """# BASELINE config 4 — T255 + 256 x (128 x 128 x 160) per v5p host
+REPORT = """# BASELINE config 4 — T255 + 256 x (128 x 128 x 160) on one 4-card host
 
-## Measured (this repo, single {device})
+## Measured ({device})
 
 {measured}
 
-## HBM fit analysis for the v5p host target
-
-Per-instance LES state (f32): 7 prognostic 3-D fields of 128*128*160
-(10.49 MB each) + the w face plane + 1-D base-state arrays ~= **75 MB**.
-
-- 256 instances -> 19.2 GB of resident fleet state.
-- Serial per-instance pacing (models/les/step.py map_fleet) keeps ONE
-  instance's RK workspace live per chip at a time: fused-stage temporaries
-  ~3 stage buffers x 7 fields ~= 0.25 GB, Poisson eigen-solver buffers
-  ~0.15 GB.
-- T255 GCM: spectral state 8 vars x 19 levels x 257 x 258 x 2 f32
-  ~= 80 MB; Legendre tables (P, H, Pw, Hw) ~= 410 MB; grid fields
-  ~= 90 MB. Replicated per chip.
-
-A v5p chip has 95 GB HBM; a v5p host has 4 chips (380 GB). The whole
-256-instance fleet (19.2 GB) + GCM (0.6 GB) fits on ONE v5p chip with
->75 GB headroom; across the host's 4 chips the natural layout is
-`les=4` x 64 instances/chip (4.8 GB/chip) with the GCM's spectral
-transforms lat-band-sharded over the same 4 chips (parallel P3). No
-plane-level (x, y) decomposition is required for memory at this size —
-it remains available (P2, tested at 64x64x160 and dry-run at 128-plane)
-for latency scaling.
-
-Throughput extrapolation: measured {ups:.3e} updates/s on this chip;
-a v5p chip has ~2.3x the HBM bandwidth (2765 vs 819 GB/s) and ~2x the
-VPU rate of a v5e, so one host (4 chips, les=4) projects to
-~{proj:.1e} updates/s at the measured scaling efficiency.
 """
 
 
@@ -69,11 +41,11 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from sp_coupler_tpu.models.gcm import model as gcm_model
-    from sp_coupler_tpu.models.les import (grid as lgrid, state as lstate,
+    from sp_coupler.models.gcm import model as gcm_model
+    from sp_coupler.models.les import (grid as lgrid, state as lstate,
                                            step as lstep, diag as ldiag)
-    from sp_coupler_tpu.coupling import convert
-    from sp_coupler_tpu.coupling.coupler import CoupledStepFn
+    from sp_coupler.coupling import convert
+    from sp_coupler.coupling.coupler import CoupledStepFn
 
     n_les = args.n
     gcfg = gcm_model.GCMConfig(trunc=255, nlev=19, dt=900.0, hybrid=True,
@@ -81,7 +53,7 @@ def main():
     core = gcm_model.GCMCore(gcfg)
     grid = lgrid.LESGrid(nx=128, ny=128, nz=160, dx=100.0, dy=100.0,
                          dz=25.0)
-    phys = lstep.LESPhysics(use_pallas=jax.default_backend() == "tpu")
+    phys = lstep.LESPhysics()
     print("backend:", jax.default_backend(), " T255 grid:", core.nlat,
           "x", core.nlon, " n_les:", n_les, flush=True)
 
@@ -146,14 +118,15 @@ def main():
             "of 128x128x160 on one chip: **%.2f s/coupled-step** "
             "(%d adaptive substeps total, %.3e LES gridpoint-updates/s)."
             % (n_les, step_s, total_sub, ups))
-        rep = REPORT.format(device=str(jax.devices()[0]),
-                            measured=measured, ups=ups,
-                            proj=ups * 4 * 2.3)
+        from sp_coupler.runtime import device
         outp = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "sp_coupler_tpu", "verify",
+            os.path.abspath(__file__))), "sp_coupler", "verify",
             "T255_CONFIG4.md")
+        with open(outp) as f:
+            fit = "## Memory fit" + f.read().split("## Memory fit", 1)[1]
         with open(outp, "w") as f:
-            f.write(rep)
+            f.write(REPORT.format(device=device.nvidia_smi(),
+                                  measured=measured) + fit)
         print("wrote", outp)
     return 0
 

@@ -8,8 +8,8 @@ import time
 import jax
 import jax.numpy as jnp
 
-from sp_coupler_tpu.models.les import grid as lgrid, state as lstate, poisson
-from sp_coupler_tpu.models.les.advect import divergence
+from sp_coupler.models.les import grid as lgrid, state as lstate, poisson
+from sp_coupler.models.les.advect import divergence
 
 N_LES = 2
 NSCAN = 30

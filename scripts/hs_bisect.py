@@ -36,7 +36,7 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from sp_coupler_tpu.models.gcm import model as gm, physics
+    from sp_coupler.models.gcm import model as gm, physics
 
     phys = physics.PhysicsParams(dtheta_z=10.0, tau_rad=40.0 * 86400.0,
                                  tau_rad_sfc=4.0 * 86400.0,

@@ -4,9 +4,8 @@
 The reference regression mechanism replays a recorded spifs.nc through the
 coupling layer and compares every value the coupler would have sent back
 against the recording (/root/reference/splib/ncmod.py:167-170, 245-261).
-This script produces that recording on the current backend (TPU in
-production) with gzip-compressed variables so the golden file is small
-enough to check in; tests/test_golden.py replays it.
+This script produces that recording on the current backend;
+tests/test_golden.py replays it.
 
 Usage:  python scripts/make_golden.py [outdir] [steps]
 Writes  <outdir>/spifs.nc + golden_meta.json  (default tests/golden).
@@ -30,20 +29,16 @@ def main():
     outdir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         REPO, "tests", "golden")
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 100
-    import tempfile
-    fd, conf = tempfile.mkstemp(suffix=".json", prefix="golden_conf_")
-    with os.fdopen(fd, "w") as f:
-        json.dump({"output_compress": 4}, f)
     cmd = [sys.executable, os.path.join(REPO, "spmaster.py"),
            "--steps", str(steps), "--poly", *POLY,
            "--numles", "16", "--gcmexp", "TEST",
-           "--odir", outdir, "--cplsurf", "--conf", conf]
+           "--odir", outdir, "--cplsurf"]
     t0 = time.time()
     subprocess.run(cmd, check=True, cwd=REPO)
     wall = time.time() - t0
     import jax
     import numpy as np
-    from sp_coupler_tpu.io import spifs
+    from sp_coupler.io import spifs
     # derive meta from the recording itself so it can never misdocument
     # the artifact (a hand-maintained meta drifted once already)
     ds = spifs.open_reader(os.path.join(outdir, "spifs.nc"))
@@ -65,7 +60,7 @@ def main():
     with open(os.path.join(outdir, "golden_meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
     for p in [os.path.join(outdir, "restart.npz"),
-              os.path.join(outdir, "restart.json"), conf]:
+              os.path.join(outdir, "restart.json")]:
         if os.path.exists(p):
             os.remove(p)
     print("golden recorded:", meta)

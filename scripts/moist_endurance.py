@@ -50,7 +50,7 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from sp_coupler_tpu.models.gcm import model as gm
+    from sp_coupler.models.gcm import model as gm
 
     # DEFAULT physics: the moist setup every coupled run uses
     cfg = gm.GCMConfig(trunc=args.trunc, nlev=args.nlev, dt=args.dt,
@@ -76,7 +76,7 @@ def main():
         (s, au, c), _ = jax.lax.scan(
             body, (state, zu, jnp.zeros(())), None, length=CHUNK)
         g = s.grid
-        from sp_coupler_tpu import constants as cns
+        from sp_coupler import constants as cns
         ps = cns.pref0 * jnp.exp(g.lnps)
         stats = jnp.stack([
             jnp.abs(g.u).max(), g.T.min(), g.T.max(), g.q.max(),
@@ -142,7 +142,7 @@ def main():
             "ok": ok}
     print(json.dumps(line), flush=True)
 
-    out = args.out or os.path.join(REPO, "sp_coupler_tpu", "verify",
+    out = args.out or os.path.join(REPO, "sp_coupler", "verify",
                                    "MOIST_T42.md")
     with open(out, "w") as f:
         f.write("# Moist production-physics endurance (default "

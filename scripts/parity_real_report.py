@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Write the recorded CPU<->TPU parity report at the REAL case size.
+"""Write the recorded CPU<->GPU parity report at the REAL case size.
 
 Consumes two summaries produced by
-    python -m sp_coupler_tpu.verify.parity run <out.npz> real 10
+    python -m sp_coupler.verify.parity run <out.npz> real 10
 on each backend (T21/L19 GCM + 2 x 64x64x160 LES — BASELINE config 1)
-and writes sp_coupler_tpu/verify/PARITY_REAL.md with the per-field
+and writes sp_coupler/verify/PARITY_REAL.md with the per-field
 numbers and the tolerance-model discussion.
 
-Usage: python scripts/parity_real_report.py cpu.npz tpu.npz [out.md]
+Usage: python scripts/parity_real_report.py cpu.npz gpu.npz [out.md]
 """
 
 import os
@@ -17,21 +17,20 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from sp_coupler_tpu.verify import parity  # noqa: E402
+from sp_coupler.verify import parity  # noqa: E402
 
-HEADER = """# CPU <-> TPU parity at the real case size (BASELINE config 1)
+HEADER = """# CPU <-> GPU parity at the real case size (BASELINE config 1)
 
 Configuration: T21/L19 GCM (dt 600 s) coupled to 2 LES instances of
 64 x 64 x 160 (200 m / 25 m spacing — the run_T21 case grid), 10 coupled
 steps, CFL-adaptive substepping (~120 LES substeps per coupled step per
-instance). Each backend runs ITS production path: the fused Pallas
-RK-stage kernel on TPU, the XLA reference path on CPU
-(`python -m sp_coupler_tpu.verify.parity run <out> real 10`).
+instance). Both backends run the same XLA program
+(`python -m sp_coupler.verify.parity run <out> real 10`).
 
 ## Tolerance model
 
 The LES is chaotic: float32 rounding differences between backends
-(matmul pass structure, fusion order, kernel vs XLA arithmetic) grow at
+(reduction order, fusion and FMA contraction) grow at
 the turbulence Lyapunov rate, so BIT parity across platforms is
 impossible by construction after ~minutes of simulated time. One coupled
 step is already ~120 chaotic substeps. The enforced observables are the
@@ -53,7 +52,7 @@ def main():
     a_path, b_path = sys.argv[1], sys.argv[2]
     out = sys.argv[3] if len(sys.argv) > 3 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "sp_coupler_tpu", "verify", "PARITY_REAL.md")
+        "sp_coupler", "verify", "PARITY_REAL.md")
     a = np.load(a_path)
     b = np.load(b_path)
     assert set(a.files) == set(b.files)

@@ -18,7 +18,7 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    from sp_coupler_tpu.models.gcm import model as gm, dycore
+    from sp_coupler.models.gcm import model as gm, dycore
 
     trunc = int(sys.argv[1]) if len(sys.argv) > 1 else 639
     nlev = int(sys.argv[2]) if len(sys.argv) > 2 else 60

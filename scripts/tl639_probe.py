@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Probe the split-phase SL pipeline one device program at a time.
 
-The TL639 endurance run crashed the TPU worker inside phase A; this
+To find which program of phase A fails or dominates at TL639, this
 script mirrors GCMCore.phase_a's split-mode sequence (model.py:281-307)
 with a hard sync + wall timing after EVERY program so the failing
 program and its cost are identified. Usage:
@@ -27,7 +27,7 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from sp_coupler_tpu.models.gcm import model as gm
+    from sp_coupler.models.gcm import model as gm
 
     cfg = gm.GCMConfig(trunc=args.trunc, nlev=args.nlev, dt=args.dt,
                        hybrid=True, advection="sl", split_phases=True)

@@ -10,7 +10,7 @@ import time
 import jax
 import jax.numpy as jnp
 
-from sp_coupler_tpu.models.les import grid as lgrid, poisson
+from sp_coupler.models.les import grid as lgrid, poisson
 
 
 def timeit(name, fn, arg, reps):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Experiment driver CLI for the TPU-native superparameterized framework.
+"""Experiment driver CLI for the superparameterized framework.
 
 Same surface as the reference driver (/root/reference/spmaster.py): region
 selection from points / polygons / geoJSON, model-type switches, spinup,
@@ -12,9 +12,10 @@ import logging
 import os
 import sys
 
-from sp_coupler_tpu.config import SPConfig, read_config
-from sp_coupler_tpu.utils import geometry
-from sp_coupler_tpu.runtime.driver import SPRunner
+from sp_coupler.config import SPConfig, read_config
+from sp_coupler.utils import geometry
+from sp_coupler.runtime import compile_cache
+from sp_coupler.runtime.driver import SPRunner
 
 logging.basicConfig(level=logging.INFO)
 log = logging.getLogger(__name__)
@@ -35,7 +36,7 @@ def readable_dir(dirname):
 
 def build_parser(defaults: SPConfig):
     p = argparse.ArgumentParser(
-        description="GCM-LES superparametrization run script (TPU-native)",
+        description="GCM-LES superparametrization run script",
         fromfile_prefix_chars="@")
     p.add_argument("--steps", dest="gcm_steps", metavar="N", type=int,
                    default=defaults.gcm_steps, help="Nr. of (GCM) time steps")
@@ -177,14 +178,15 @@ def geometries_from_args(args):
     return geoms, out_geoms
 
 
-def main(argv=None):
+def setup(argv=None):
+    """Parse the command line into a configured, uninitialized SPRunner."""
     defaults = SPConfig()
     parser = build_parser(defaults)
     args = parser.parse_args(argv)
     # precedence: dataclass defaults < native input decks (namoptions /
     # fort.4, like the reference's Fortran codes configure themselves,
     # modfac.py:40-93) < --conf JSON < explicitly-given CLI flags
-    from sp_coupler_tpu.utils import decks
+    from sp_coupler.utils import decks
     cfg = defaults.replace(**{
         k: v for k, v in vars(args).items()
         if k in ("les_input_dir", "gcm_input_dir", "les_exp_name")})
@@ -197,7 +199,13 @@ def main(argv=None):
     cfg = cfg.replace(**overrides)
 
     geoms, out_geoms = geometries_from_args(args)
-    runner = SPRunner(cfg, geoms, out_geoms)
+    return SPRunner(cfg, geoms, out_geoms)
+
+
+def run(runner):
+    """Initialize, step and finalize a runner from setup(); exit code."""
+    cfg = runner.cfg
+    compile_cache.configure()
     runner.initialize()
     if cfg.dryrun:
         log.info("dry run complete; gridpoints.txt written")
@@ -216,6 +224,10 @@ def main(argv=None):
     return 0
 
 
+def main(argv=None):
+    return run(setup(argv))
+
+
 if __name__ == "__main__":
-    print("-- spmaster (sp_coupler_tpu) starting --")
+    print("-- spmaster (sp_coupler) starting --")
     sys.exit(main())

@@ -29,9 +29,9 @@ jax.config.update("jax_threefry_partitionable", True)
 
 def main():
     outdir, n_steps = sys.argv[1], int(sys.argv[2])
-    from sp_coupler_tpu.config import SPConfig
-    from sp_coupler_tpu.runtime.driver import SPRunner
-    from sp_coupler_tpu.utils import geometry
+    from sp_coupler.config import SPConfig
+    from sp_coupler.runtime.driver import SPRunner
+    from sp_coupler.utils import geometry
 
     cfg = SPConfig(gcm_type="sptpu", les_type="sptpu",
                    gcm_truncation=10, gcm_levels=8, gcm_dt=600.0,

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sp_coupler_tpu import constants as c
-from sp_coupler_tpu.utils import thermo
-from sp_coupler_tpu.coupling import convert, nudge
+from sp_coupler import constants as c
+from sp_coupler.utils import thermo
+from sp_coupler.coupling import convert, nudge
 
 
 def synthetic_column(L=19):

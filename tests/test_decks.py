@@ -7,8 +7,8 @@ import textwrap
 
 import numpy as np
 
-from sp_coupler_tpu.config import SPConfig
-from sp_coupler_tpu.utils import decks
+from sp_coupler.config import SPConfig
+from sp_coupler.utils import decks
 
 NAMOPTIONS = textwrap.dedent("""\
     &RUN
@@ -124,7 +124,7 @@ def test_cli_precedence(tmp_path):
         "--steps", "5"])
     cfg = SPConfig().replace(les_input_dir=les, gcm_input_dir=gcm)
     cfg = decks.apply_decks(cfg)
-    from sp_coupler_tpu.config import read_config
+    from sp_coupler.config import read_config
     cfg = read_config(args.conf, base=cfg)
     overrides = {k: v for k, v in vars(args).items()
                  if k in SPConfig.__dataclass_fields__
@@ -139,8 +139,8 @@ def test_cli_precedence(tmp_path):
 def test_driver_cold_start_from_prof(tmp_path):
     """init_les_state=False + a DALES deck: the fleet initializes from
     prof.inp (the reference LES self-initializes from its deck)."""
-    from sp_coupler_tpu.runtime.driver import SPRunner
-    from sp_coupler_tpu.utils import geometry
+    from sp_coupler.runtime.driver import SPRunner
+    from sp_coupler.utils import geometry
     les, _ = write_case(tmp_path)
     cfg = SPConfig(gcm_type="sptpu", les_type="sptpu",
                    gcm_truncation=10, gcm_levels=8, gcm_dt=600.0,

@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from sp_coupler_tpu.config import SPConfig
-from sp_coupler_tpu.utils import geometry
-from sp_coupler_tpu.runtime.driver import SPRunner
-from sp_coupler_tpu.io import spifs, h5nc
+from sp_coupler.config import SPConfig
+from sp_coupler.utils import geometry
+from sp_coupler.runtime.driver import SPRunner
+from sp_coupler.io import nc3, spifs
 
 
 def dummy_cfg(tmp_path, **kw):
@@ -19,39 +19,40 @@ def dummy_cfg(tmp_path, **kw):
     return SPConfig(**base)
 
 
-class TestH5NC:
+class TestNC3:
     def test_roundtrip(self, tmp_path):
         path = str(tmp_path / "t.nc")
-        ds = h5nc.Dataset(path, "w")
-        ds.createDimension("z", 5)
+        ds = nc3.Dataset(path, "w")
         ds.createDimension("Time", None)
-        v = ds.createVariable("T", "f4", ("Time", "z"))
-        v.units = "K"
-        v[0] = np.arange(5.0)
-        v[1] = np.arange(5.0) * 2
-        g = ds.createGroup("12")
-        gv = g.createVariable("x", "f4", ("Time",))
-        gv[0] = 3.5
+        ds.createDimension("z", 5)
+        ds.createVariable("T", "f4", ("Time", "z"), units="K")
+        ds.createVariable("x", "f4", ("Time",))
+        ds.enddef()
+        ds.put_record(0, {"T": np.arange(5.0), "x": 3.5})
+        ds.put_record(1, {"T": np.arange(5.0) * 2})
         ds.close()
-        r = h5nc.Dataset(path, "r")
+        r = nc3.Dataset(path, "r")
         assert r.dimensions["z"] == 5
         np.testing.assert_allclose(r.variables["T"][1], np.arange(5.0) * 2)
-        assert r.variables["T"].units == b"K" or r.variables["T"].units == "K"
-        assert float(r.groups["12"].variables["x"][0]) == 3.5
+        assert r.variables["T"].units == "K"
+        assert float(r.variables["x"][0]) == 3.5
+        # a record variable left out of a record holds its fill value
+        assert float(r.variables["x"][1]) == r.variables["x"].fill_value
         r.close()
 
     def test_append_mode(self, tmp_path):
         path = str(tmp_path / "t.nc")
-        ds = h5nc.Dataset(path, "w")
+        ds = nc3.Dataset(path, "w")
         ds.createDimension("Time", None)
-        v = ds.createVariable("Time", "f4", ("Time",))
-        v[0] = 1.0
+        ds.createVariable("Time", "f4", ("Time",))
+        ds.enddef()
+        ds.put_record(0, {"Time": 1.0})
         ds.close()
-        ds2 = h5nc.Dataset(path, "a")
-        tv = ds2.variables["Time"]
-        tv[1] = 2.0
+        ds2 = nc3.Dataset(path, "a")
+        assert ds2.numrecs == 1
+        ds2.put_record(ds2.numrecs, {"Time": 2.0})
         ds2.close()
-        r = h5nc.Dataset(path, "r")
+        r = nc3.Dataset(path, "r")
         np.testing.assert_allclose(r.variables["Time"][:], [1.0, 2.0])
         r.close()
 
@@ -159,7 +160,7 @@ class TestNativeSmallLoop:
 
 class TestFusedPath:
     def _cfg(self, tmp_path, **kw):
-        from sp_coupler_tpu.config import SPConfig
+        from sp_coupler.config import SPConfig
         base = dict(gcm_type="sptpu", les_type="sptpu",
                     gcm_truncation=10, gcm_levels=8, gcm_dt=600.0,
                     les_itot=16, les_jtot=16, les_ktot=24,
@@ -220,7 +221,7 @@ class TestFusedPath:
         """restart_steps=1 writes a checkpoint after every coupled step
         (reference: OpenIFS restart_steps / DALES trestart scheduling)."""
         import os
-        from sp_coupler_tpu.io import restart as restart_io
+        from sp_coupler.io import restart as restart_io
         cfg = self._cfg(tmp_path, restart_steps=1)
         r = SPRunner(cfg, [geometry.Point((300.0, 15.0))])
         r.initialize()
@@ -431,7 +432,7 @@ class TestCrossOutput:
         """les_cross=True (NAMCROSSSECTION lcross) -> per-instance
         les-work-<col>/cross.nc via the native async writer, at the dtav
         cadence capped by the coupled step (README.md:108-111)."""
-        from sp_coupler_tpu.io import spnc
+        from sp_coupler.io import spnc
         cfg = SPConfig(gcm_type="sptpu", les_type="sptpu",
                        gcm_truncation=10, gcm_levels=8, gcm_dt=600.0,
                        les_itot=16, les_jtot=16, les_ktot=24,

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sp_coupler_tpu import constants as c
-from sp_coupler_tpu.models.gcm import vertical, model
+from sp_coupler import constants as c
+from sp_coupler.models.gcm import vertical, model
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +175,7 @@ class TestDycoreStability:
         weak #1). 480 steps at T42 catches SL/hybrid/filter instabilities
         in minutes."""
         import jax
-        from sp_coupler_tpu.models.gcm import physics
+        from sp_coupler.models.gcm import physics
         phys = physics.PhysicsParams(dtheta_z=10.0,
                                      tau_rad=40.0 * 86400.0,
                                      tau_rad_sfc=4.0 * 86400.0,
@@ -215,7 +215,7 @@ class TestDycoreStability:
         cloud scheme + K-diffusion PBL + bulk surface fluxes) — the
         configuration production coupled runs use, which the dry HS94
         guard above does not cover (VERDICT r4 missing #3; the 100-day
-        artifact is sp_coupler_tpu/verify/MOIST_T42.md)."""
+        artifact is sp_coupler/verify/MOIST_T42.md)."""
         import jax
         cfg = model.GCMConfig(trunc=42, nlev=19, dt=1800.0, hybrid=True,
                               advection="sl")
@@ -313,7 +313,7 @@ class TestSemiLagrangian:
     fort.4:52; TL639 runs need ~720 s, far beyond the Eulerian CFL)."""
 
     def _slg(self, trunc=21):
-        from sp_coupler_tpu.models.gcm import spharm, semilag
+        from sp_coupler.models.gcm import spharm, semilag
         sht = spharm.SpectralTransform(trunc)
         return sht, semilag.SLGrid(sht)
 
@@ -396,6 +396,12 @@ class TestSemiLagrangian:
         w = np.asarray(sht.w)[:, None]
         assert abs((q * w).sum() - (q0 * w).sum()) / (q0 * w).sum() < 0.035
 
+    def test_default_interpolation_is_gather(self):
+        from sp_coupler.models.gcm import semilag
+        sht, slg = self._slg(10)
+        assert slg.method == "gather"
+        assert semilag.SLGrid(sht, method=None).method == "gather"
+
     def test_sl_matches_eulerian_at_t21(self):
         """Same T21 case, same dt: SL and Eulerian solve the same PDE, so
         50 steps apart the fields must stay close relative to their own
@@ -422,12 +428,12 @@ class TestSemiLagrangian:
         assert np.all(np.isfinite(res["sl"]["u"]))
 
     def test_window_matches_gather(self):
-        """The TPU 'window' stencil path (incl. the latitude-banded
+        """The 'window' stencil path (incl. the latitude-banded
         variant sized from dt) evaluates the same taps/weights as the
-        CPU 'gather' path: allclose to f32 roundoff on random in-window
+        default 'gather' path: allclose to f32 roundoff on random in-window
         displacements (advisor round-4 medium item)."""
         import jax.numpy as jnp
-        from sp_coupler_tpu.models.gcm import spharm, semilag
+        from sp_coupler.models.gcm import spharm, semilag
         sht = spharm.SpectralTransform(42)
         slg_g = semilag.SLGrid(sht, method="gather")
         slg_w = semilag.SLGrid(sht, method="window")
@@ -472,7 +478,7 @@ class TestSemiLagrangian:
         saturated lat bracket must not cubic-EXTRApolate) and
         clamp_stats reports the activation."""
         import jax.numpy as jnp
-        from sp_coupler_tpu.models.gcm import spharm, semilag
+        from sp_coupler.models.gcm import spharm, semilag
         sht = spharm.SpectralTransform(21)
         slg = semilag.SLGrid(sht, method="window", dt=900.0)
         lam = jnp.asarray(2 * np.pi * np.arange(sht.nlon) / sht.nlon)
@@ -494,7 +500,7 @@ class TestSemiLagrangian:
         """Typos in the scheme options raise instead of silently falling
         through to a different integration scheme."""
         import pytest
-        from sp_coupler_tpu.models.gcm import spharm, semilag
+        from sp_coupler.models.gcm import spharm, semilag
         sht = spharm.SpectralTransform(10)
         with pytest.raises(ValueError):
             semilag.SLGrid(sht, method="Window")
@@ -539,7 +545,7 @@ class TestSemiLagrangian:
         s = core.initial_state(seed=0)
         # inject a strong zonal jet: dx(T21) ~ 625 km, 60 m/s * 2*7200 s
         # = 864 km >> dx -> Eulerian leapfrog unstable by construction
-        from sp_coupler_tpu.models.gcm import dycore
+        from sp_coupler.models.gcm import dycore
         g = dycore.to_grid(core.sht, core.vc, s.now)
         u = g.u + 60.0 * jnp.cos(jnp.arcsin(core.sht.mu))[None, :, None] ** 3
         vort, div = core.sht.vort_div_from_uv(u, g.v)

@@ -1,14 +1,15 @@
 """Golden-run regression: replay the recorded BASELINE config-2 spifs.nc.
 
-tests/golden/spifs.nc is a TPU recording of T21 + 16 SP columns x 100
-coupled steps (scripts/make_golden.py). Both models are replayed from the
+tests/golden/spifs.nc is an accelerator recording (golden_meta.json names
+the device) of T21 + 16 SP columns x 100 coupled steps
+(scripts/make_golden.py), stored as netCDF classic. Both models are replayed from the
 recording while the REAL coupling layer recomputes every conversion,
 forcing, and tendency; the replay setters compare what the coupler sends
 back against what was recorded. This is the reference's core offline
 regression mechanism (/root/reference/splib/ncmod.py:167-170, 245-261)
 pointed at a real checked-in golden run.
 
-The comparison crosses platforms (TPU recording, CPU CI): the coupling
+The comparison crosses platforms (accelerator recording, CPU CI): the coupling
 math is [n, L] profile arithmetic, one step deep, so it reproduces to
 float32 rounding (measured ~1e-11 absolute), far below the 1e-5-relative
 gate here.
@@ -20,17 +21,17 @@ import os
 import numpy as np
 import pytest
 
-from sp_coupler_tpu.config import SPConfig
-from sp_coupler_tpu.io import spifs
-from sp_coupler_tpu.runtime.driver import SPRunner
-from sp_coupler_tpu.utils import geometry
+from sp_coupler.config import SPConfig
+from sp_coupler.io import spifs
+from sp_coupler.runtime.driver import SPRunner
+from sp_coupler.utils import geometry
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_NC = os.path.join(GOLDEN, "spifs.nc")
 
 needs_golden = pytest.mark.skipif(
     not os.path.exists(GOLDEN_NC),
-    reason="no golden recording (run scripts/make_golden.py on TPU)")
+    reason="no golden recording (run scripts/make_golden.py)")
 
 
 @needs_golden
@@ -64,7 +65,7 @@ class TestGoldenStructure:
         superset polygon once passed the replay silently)."""
         with open(os.path.join(GOLDEN, "golden_meta.json")) as f:
             meta = json.load(f)
-        from sp_coupler_tpu.models.gcm import spharm
+        from sp_coupler.models.gcm import spharm
         nlon, nlat = spharm.GRID_FOR_TRUNC[21]
         mu, _ = spharm.gaussian_latitudes(nlat)
         lats = np.degrees(np.arcsin(mu))

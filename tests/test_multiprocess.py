@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import pytest
 
-from sp_coupler_tpu.io import spifs
+from sp_coupler.io import spifs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "mp_worker.py")
@@ -98,7 +98,7 @@ def test_two_process_run_matches_single(tmp_path):
     # exist in the 2-process run (each worker writes the instances it
     # owns — reference README.md:108-111), with the same records as the
     # single-process run
-    from sp_coupler_tpu.io import spnc
+    from sp_coupler.io import spnc
     ds = spifs.open_reader(nc2)
     cols = sorted(int(g) for g in ds.groups)
     ds.close()

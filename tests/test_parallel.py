@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-virtual-CPU-device mesh.
 
-Validates the TPU parallel plan of SURVEY.md section 2.4 without TPU
-hardware: instance parallelism over the `les` axis (P1) and intra-LES
+Validates the parallel plan of SURVEY.md section 2.4 without
+accelerators: instance parallelism over the `les` axis (P1) and intra-LES
 horizontal domain decomposition over `x`/`y` (P2, DALES nprocx*nprocy +
 halo exchange -> GSPMD collective-permutes inserted around the stencil
 rolls).
@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sp_coupler_tpu.models.les import (grid as lgrid, state as lstate,
+from sp_coupler.models.les import (grid as lgrid, state as lstate,
                                        step as lstep)
-from sp_coupler_tpu.models.les.state import LESForcing
-from sp_coupler_tpu.parallel import mesh as pmesh, sharding as shd
+from sp_coupler.models.les.state import LESForcing
+from sp_coupler.parallel import mesh as pmesh, sharding as shd
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -87,7 +87,7 @@ class TestGCMSpectralSharding:
     plays the role of the reference GCM's MPI transposes."""
 
     def test_transform_roundtrip_sharded(self):
-        from sp_coupler_tpu.models.gcm import spharm
+        from sp_coupler.models.gcm import spharm
         mesh = pmesh.make_mesh(n_les=8)
         ref = spharm.SpectralTransform(21)
         sh = spharm.SpectralTransform(21, mesh=mesh, axis="les")
@@ -105,7 +105,7 @@ class TestGCMSpectralSharding:
                                    atol=1e-5, rtol=1e-5)
 
     def test_gcm_step_sharded_matches(self):
-        from sp_coupler_tpu.models.gcm import model as gcm_model
+        from sp_coupler.models.gcm import model as gcm_model
         cfg = gcm_model.GCMConfig(trunc=10, nlev=8, dt=600.0)
         core_ref = gcm_model.GCMCore(cfg)
         s0 = core_ref.initial_state(seed=0)
@@ -133,7 +133,7 @@ class TestGCMSpectralSharding:
     def test_gcm_step_sharded_matches_sl(self):
         """Same lat-band sharding check for the SEMI-LAGRANGIAN path:
         the departure gathers / ghost-row rolls must survive GSPMD."""
-        from sp_coupler_tpu.models.gcm import model as gcm_model
+        from sp_coupler.models.gcm import model as gcm_model
         cfg = gcm_model.GCMConfig(trunc=10, nlev=8, dt=600.0,
                                   advection="sl")
         core_ref = gcm_model.GCMCore(cfg)
@@ -160,7 +160,7 @@ class TestScalingEfficiency:
         core budget, so efficiency is <= 1 by construction and genuine
         partitioner/collective overhead can actually fail the gate;
         VERDICT r3 next-round #3)."""
-        from sp_coupler_tpu.runtime import scalebench
+        from sp_coupler.runtime import scalebench
         r = scalebench.measure(sizes=[1, 4], per_dev=1, nx=16, ny=16,
                                nz=16, substeps=3, reps=4, verbose=False,
                                mode="fixed")
@@ -231,9 +231,9 @@ class TestProductionPlaneSharding:
     def test_fused_coupled_step_spatially_sharded(self):
         """The FUSED coupled step (T10 GCM + one 64x64x160 instance) runs
         spatially sharded and matches the unsharded coupled step."""
-        from sp_coupler_tpu.models.gcm import model as gcm_model
-        from sp_coupler_tpu.models.les import diag as ldiag
-        from sp_coupler_tpu.coupling.coupler import CoupledStepFn
+        from sp_coupler.models.gcm import model as gcm_model
+        from sp_coupler.models.les import diag as ldiag
+        from sp_coupler.coupling.coupler import CoupledStepFn
 
         g, st, _ = self._one_instance()
         phys = lstep.LESPhysics()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sp_coupler_tpu.verify import parity
+from sp_coupler.verify import parity
 
 
 class TestParity:

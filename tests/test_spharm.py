@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sp_coupler_tpu.models.gcm import spharm
+from sp_coupler.models.gcm import spharm
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +23,7 @@ def random_spectral(sht, key=0, amp=1.0):
 
 class TestTransforms:
     def test_orthonormality(self, sht):
-        from sp_coupler_tpu.models.gcm.spharm import legendre_tables
+        from sp_coupler.models.gcm.spharm import legendre_tables
         P, _ = legendre_tables(sht.trunc, sht.nlat)
         w = np.asarray(sht.w, np.float64)
         for m in (0, 1, 7, 21):

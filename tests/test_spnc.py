@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sp_coupler_tpu.io import spnc, crossio
+from sp_coupler.io import spnc, crossio
 
 
 def _roundtrip(writer_cls, path):
@@ -85,7 +85,7 @@ class TestNativeWriter:
 class TestCrossIO:
     def test_fleet_cross_sections(self, tmp_path):
         import jax
-        from sp_coupler_tpu.models.les import grid as lgrid, state as lstate
+        from sp_coupler.models.les import grid as lgrid, state as lstate
         g = lgrid.LESGrid(nx=8, ny=8, nz=10, dx=100.0, dy=100.0, dz=100.0)
         prof = np.linspace(300.0, 310.0, 10).astype(np.float32)
         qt0 = np.full(10, 0.01, np.float32)

@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sp_coupler_tpu import constants as c
-from sp_coupler_tpu.utils import thermo, interp, geometry
+from sp_coupler import constants as c
+from sp_coupler.utils import thermo, interp, geometry
 
 
 class TestThermo:
@@ -169,13 +169,13 @@ class TestGeometry:
 
 class TestConfig:
     def test_read_config_dict(self):
-        from sp_coupler_tpu.config import read_config, SPConfig
+        from sp_coupler.config import read_config, SPConfig
         cfg = read_config({"gcm_steps": 5, "unknown_key": 1, "les_itot": 32})
         assert cfg.gcm_steps == 5 and cfg.les_itot == 32
         assert isinstance(cfg, SPConfig)
 
     def test_read_config_json(self, tmp_path):
-        from sp_coupler_tpu.config import read_config
+        from sp_coupler.config import read_config
         p = tmp_path / "conf.json"
         p.write_text('{"qt_forcing": "variance"}')
         cfg = read_config(str(p))
